@@ -1,9 +1,9 @@
 """IR dataset generation over procedural rooms, sharded across a device
 mesh (BASELINE.json config #5 at demo scale).
 
-Run:  python examples/dataset_sweep.py [--rooms 64] [--tpu]
-Without --tpu it forces 8 virtual CPU devices so the sharded path runs
-anywhere; with --tpu it uses whatever devices the platform exposes.
+Run:  python examples/dataset_sweep.py [--rooms 64] [--cpu]
+With --cpu it forces 8 virtual CPU devices so the sharded path runs
+anywhere; without it, it uses whatever devices the platform exposes.
 Writes dataset.npz (+ per-room IR stats to stdout).
 """
 
@@ -17,13 +17,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 parser = argparse.ArgumentParser()
 parser.add_argument("--rooms", type=int, default=64)
 parser.add_argument("--rays", type=int, default=4096)
-parser.add_argument("--tpu", action="store_true")
+parser.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend (default: the default device)")
 parser.add_argument("--out", default="dataset.npz")
 args = parser.parse_args()
 
 import jax  # noqa: E402
 
-if not args.tpu:
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)
 

@@ -16,7 +16,7 @@ Success criterion (self-asserted): the per-arrival spectrum carries
 BOTH lines within the FFT grid of ``f0 (1 +- v/c)``, each well above the
 local spectral floor.
 
-Run:  python examples/doppler_walkby.py  [--tpu]
+Run:  python examples/doppler_walkby.py  [--cpu]
 """
 
 import argparse
@@ -26,7 +26,8 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 parser = argparse.ArgumentParser()
-parser.add_argument("--tpu", action="store_true")
+parser.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend (default: the default device)")
 parser.add_argument("--out", default="doppler_out")
 parser.add_argument("--rays", type=int, default=2048)
 parser.add_argument("--chunks", type=int, default=10)
@@ -34,7 +35,7 @@ args = parser.parse_args()
 
 import jax  # noqa: E402
 
-if not args.tpu:
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
 import dataclasses  # noqa: E402

@@ -11,7 +11,7 @@ ray traffic, so both groups are strongly identifiable from one listener's
 energy-decay curve; a small interior obstacle, by contrast, moves the EDC
 less than the Monte-Carlo noise floor at this ray budget.)
 
-Run:  python examples/inverse_materials.py [--tpu] [--steps 80]
+Run:  python examples/inverse_materials.py [--cpu] [--steps 80]
 """
 
 import argparse
@@ -22,15 +22,15 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 parser = argparse.ArgumentParser()
-parser.add_argument("--tpu", action="store_true",
-                    help="use the default (TPU) backend")
+parser.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend (default: the default device)")
 parser.add_argument("--steps", type=int, default=150)
 parser.add_argument("--rays", type=int, default=256)
 args = parser.parse_args()
 
 import jax  # noqa: E402
 
-if not args.tpu:
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402

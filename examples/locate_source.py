@@ -11,7 +11,7 @@ through the simulation — all starts batched in one `vmap`.
 The reference (Unity/HLSL graphics pipeline) cannot express this: there is
 no gradient through a compute-shader dispatch.
 
-Run:  python examples/locate_source.py [--tpu] [--starts 8] [--steps 200]
+Run:  python examples/locate_source.py [--cpu] [--starts 8] [--steps 200]
 """
 
 import argparse
@@ -22,8 +22,8 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 parser = argparse.ArgumentParser()
-parser.add_argument("--tpu", action="store_true",
-                    help="use the default (TPU) backend")
+parser.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend (default: the default device)")
 parser.add_argument("--starts", type=int, default=8)
 parser.add_argument("--steps", type=int, default=200)
 parser.add_argument("--rays", type=int, default=256)
@@ -31,7 +31,7 @@ args = parser.parse_args()
 
 import jax  # noqa: E402
 
-if not args.tpu:
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402

@@ -23,7 +23,7 @@ import sys
 
 import jax
 
-if "--tpu" not in sys.argv:
+if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np

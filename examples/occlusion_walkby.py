@@ -13,7 +13,7 @@ Success criterion: in the shadowed middle chunks the plain stream is
 EXACTLY silent while the diffraction stream is not; both are identical
 while the line of sight is clear; air absorption only removes energy.
 
-Run:  python examples/occlusion_walkby.py  [--tpu]
+Run:  python examples/occlusion_walkby.py  [--cpu]
 """
 
 import argparse
@@ -23,13 +23,14 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 parser = argparse.ArgumentParser()
-parser.add_argument("--tpu", action="store_true")
+parser.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend (default: the default device)")
 parser.add_argument("--out", default="occlusion_out")
 args = parser.parse_args()
 
 import jax  # noqa: E402
 
-if not args.tpu:
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402

@@ -1,12 +1,11 @@
 """Microphone-array demo: one trace pass, N x N listeners.
 
 Traces the SmollRoom with a square microphone array around the shipped
-listener position (listeners in a launch share every wall sweep inside
-the fused kernel; past 4 listeners the wrapper adds bit-exact blocked
-launches — round 2 removed the listener cap), then bakes an N*N-channel
+listener position (all listeners share every wall sweep of the trace;
+the listener count is unbounded), then bakes an N*N-channel
 WAV whose inter-channel delays encode the array geometry.
 
-Run:  python examples/quad_mic.py [--tpu] [--grid 3]
+Run:  python examples/quad_mic.py [--cpu] [--grid 3]
 """
 
 import argparse
@@ -17,8 +16,8 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 parser = argparse.ArgumentParser()
-parser.add_argument("--tpu", action="store_true",
-                    help="use the default (TPU) backend")
+parser.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend (default: the default device)")
 parser.add_argument("--out", default="quad_out")
 parser.add_argument("--grid", type=int, default=2,
                     help="array side length (grid x grid mics; >2 "
@@ -27,7 +26,7 @@ args = parser.parse_args()
 
 import jax  # noqa: E402
 
-if not args.tpu:
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402

@@ -12,7 +12,7 @@ It also demonstrates post-hoc steering: a stereo cardioid pair is
 derived from the SAME trace by linear combination (`SpatialIR.stereo`),
 matching what `--stereo-aim` would have retraced.
 
-Run:  python examples/spatial_doa.py [--tpu]
+Run:  python examples/spatial_doa.py [--cpu]
 """
 
 import argparse
@@ -22,14 +22,15 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 parser = argparse.ArgumentParser()
-parser.add_argument("--tpu", action="store_true")
+parser.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend (default: the default device)")
 parser.add_argument("--rays", type=int, default=32768)
 parser.add_argument("--frames", type=int, default=4)
 args = parser.parse_args()
 
 import jax  # noqa: E402
 
-if not args.tpu:
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402

@@ -3,15 +3,15 @@
 An 8-element vertical line array of cardioid sources is aimed at a focal
 listener; a second listener sits behind the array. Per-source
 directivity rides ``TraceParams.directivity`` as an [S, C] row table —
-on TPU the whole array traces in ONE rooms-mega kernel launch
-(`parallel/multisource.py`), each source weighting its own emission
-in-kernel (round 3). The same array re-run omni shows what the steering
+the whole array traces in one vmapped mixdown program
+(`parallel/multisource.py`), each source weighting its own emission. The
+same array re-run omni shows what the steering
 buys: front/back energy contrast at the two listeners.
 
 The reference has no multi-source mode at all (closest analogue: one
 Unity scene per source); this is framework-only capability.
 
-Run:  python examples/speaker_array.py [--tpu] [--elements 8]
+Run:  python examples/speaker_array.py [--cpu] [--elements 8]
 """
 
 import argparse
@@ -22,15 +22,15 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 parser = argparse.ArgumentParser()
-parser.add_argument("--tpu", action="store_true",
-                    help="use the default (TPU) backend")
+parser.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend (default: the default device)")
 parser.add_argument("--out", default="speaker_array_out")
 parser.add_argument("--elements", type=int, default=8)
 args = parser.parse_args()
 
 import jax  # noqa: E402
 
-if not args.tpu:
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
@@ -93,7 +93,7 @@ def early(ir, l):
 contrast_steered = db(early(steered, 0)) - db(early(steered, 1))
 contrast_omni = db(early(omni, 0)) - db(early(omni, 1))
 print(f"{S}-element array traced twice in {dt:.2f}s "
-      f"({'TPU one-launch mixdown' if args.tpu else 'CPU oracle'})")
+      f"on {jax.devices()[0].platform}")
 print(f"front/back early-energy contrast: steered "
       f"{contrast_steered:+.1f} dB vs omni {contrast_omni:+.1f} dB "
       f"(steering gain {contrast_steered - contrast_omni:+.1f} dB)")

@@ -11,7 +11,7 @@ This is the inverse counterpart of the engine's own streaming pipeline
 `RayTraceManager.FixedUpdate` loop): the forward path renders audio from
 motion, this script recovers motion from audio.
 
-Run:  python examples/track_source.py [--tpu] [--chunks 12]
+Run:  python examples/track_source.py [--cpu] [--chunks 12]
 """
 
 import argparse
@@ -22,8 +22,8 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 parser = argparse.ArgumentParser()
-parser.add_argument("--tpu", action="store_true",
-                    help="use the default (TPU) backend")
+parser.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend (default: the default device)")
 parser.add_argument("--chunks", type=int, default=12)
 parser.add_argument("--rays", type=int, default=256)
 parser.add_argument("--track-steps", type=int, default=60,
@@ -32,7 +32,7 @@ args = parser.parse_args()
 
 import jax  # noqa: E402
 
-if not args.tpu:
+if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402

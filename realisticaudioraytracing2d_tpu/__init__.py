@@ -1,13 +1,13 @@
-"""TPU-native 2D realistic-audio ray tracing framework.
+"""2D realistic-audio ray tracing framework on JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 ``clarkipeng/RealisticAudioRaytracing2D`` (a Unity C#/HLSL GPU audio ray
 tracer): stochastic 2D acoustic path tracing against polygon scenes with
 per-material absorption/scattering/transmission/refraction, impulse-response
-construction via deterministic scatter-add, Monte-Carlo accumulation across
+construction via scatter-add, Monte-Carlo accumulation across
 frames, and dry-signal convolution — offline bake or real-time chunked
 streaming with crossfaded double-buffered IRs — plus multi-source mixdown
-and room-dataset sweeps sharded over TPU meshes.
+and room-dataset sweeps sharded over device meshes.
 
 Quick start::
 

@@ -742,7 +742,7 @@ def _viz_callback(out_path, every: int):
 
 
 def cmd_live(args):
-    """Producer/consumer live pipeline: TPU streaming producer + an audio
+    """Producer/consumer live pipeline: the streaming producer + an audio
     thread draining the native ring at DSP-buffer cadence — the
     ``AudioManager.OnAudioFilterRead`` contract (AudioManager.cs:56-69)
     driven end to end, with underruns reported instead of hidden."""
@@ -1303,6 +1303,8 @@ def main(argv=None):
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

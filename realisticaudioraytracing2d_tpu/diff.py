@@ -35,10 +35,9 @@ piecewise-constant in the material parameters; their a.e. derivative is
 exactly zero, which autodiff reproduces. Gradients here were validated
 against central finite differences (see ``tests/test_diff.py``).
 
-Only the jnp oracle path is differentiable — the fused Pallas kernels have
-no VJP. Fitting runs typically use small ray budgets anyway (stochastic
-gradients), so the oracle path is the right tool; on TPU it still jits to
-the MXU/VPU via XLA.
+The whole forward is the plain jnp trace + deposit, so every platform
+differentiates the same XLA program. Fitting runs typically use small ray
+budgets (stochastic gradients).
 """
 
 from __future__ import annotations
@@ -181,7 +180,7 @@ def simulate_ir(scene: Scene, params: TraceParams, key: jax.Array, *,
     Frames run under ``lax.map`` with ``jax.checkpoint`` on the per-frame
     body (``remat=True``), so reverse-mode memory stays one-frame-sized
     instead of storing every bounce residual of every frame — the
-    HBM-friendly way to differentiate long accumulations on TPU.
+    memory-friendly way to differentiate long accumulations on device.
 
     ``soft=True`` swaps the hard ``floor`` binning for the two-bin linear
     splat (:func:`~..ops.ir.scatter_hits_soft`) so gradients flow through

@@ -26,115 +26,20 @@ from .ops import rng as _rng
 from .ops.trace import DebugPaths, Hits, TraceParams, trace, trace_hits_only
 
 
-def _fused_eligible(scene: Scene, params: TraceParams,
-                    ir_length: int) -> bool:
-    """The fused Pallas path covers any listener count (listener blocks
-    of <=4 are launched back-to-back, bit-exactly — ray physics never
-    reads the listener table) and any practical band count: histograms
-    too large for VMEM even at one listener run as IR time-axis windows
-    (bit-exact, one shared compile); it only pays off on real TPU
-    hardware (interpret mode elsewhere would be slower than XLA). Only
-    scenes past the brute kernel's wall ceiling (routed to accel/jnp)
-    or absurd band counts (>~320) fall back. Directive sources and
-    microphone patterns (round 3) run in-kernel: emission and capture
-    weighting by the Fourier gain series, so spatial IRs
-    (``spatial.py``) and ``--stereo-aim`` ride the fast path too."""
-    if jax.default_backend() != "tpu":
-        return False
-    from .ops.pallas.bounce_kernel import auto_tile, time_window
-    try:
-        auto_tile(scene.a.shape[0])  # raises past the ~5k-wall VMEM budget
-    except ValueError:
-        return False
-    # time_window >= 1 means the config can run as IR time-axis windows
-    # even when a full-length single-listener histogram overflows VMEM
-    # (subsumes the listener_block >= 1 condition)
-    return time_window(scene.n_bands) >= 1
-
-
-def _rooms_fused_eligible(scene: Scene, params: TraceParams,
-                          ir_length: int) -> bool:
-    """Eligibility for the ROOMS-batched mega kernel (dataset sweeps,
-    one-launch multi-source mixdown). Round 3: the rooms kernel gained
-    the same IR time-window decomposition as the single-scene wrappers,
-    so banded/long-IR sweeps and mixdowns stay fused — only scenes past
-    the brute kernel's wall ceiling or absurd band counts (>~320) fall
-    back to jnp. Directive sources/mics (including per-source aims in a
-    mixdown) run in-kernel here too (round 3)."""
-    if jax.default_backend() != "tpu":
-        return False
-    from .ops.pallas.bounce_kernel import auto_tile, time_window
-    try:
-        auto_tile(scene.a.shape[0])
-    except ValueError:
-        return False
-    return time_window(scene.n_bands) >= 1
-
-
-def _accel_eligible(scene, params: TraceParams, ir_length: int) -> bool:
-    """Large-scene cluster-early-out path (docs/ACCEL.md): any wall count,
-    any listener count (blocked launches), over-VMEM histograms as IR
-    time windows, TPU only. K = 1 additionally gets the per-bounce
-    Morton ray re-sort (best skip rates); banded scenes use the
-    one-launch accel kernel (early-out without re-sort). Directive
-    sources/mics run in-kernel here too (round 3), so large directive
-    scenes stay on the accel fast path."""
-    from .ops.pallas.bounce_kernel import time_window
-    return (jax.default_backend() == "tpu"
-            and time_window(scene.n_bands) >= 1)
-
-
 @partial(jax.jit,
-         static_argnames=("n_rays", "max_bounces", "sample_rate", "n_frames",
-                          "backend"))
+         static_argnames=("n_rays", "max_bounces", "sample_rate", "n_frames"))
 def trace_accumulate(scene: Scene, params: TraceParams, state: irm.IRState,
                      key: jax.Array, *, n_rays: int, max_bounces: int,
-                     sample_rate: int, n_frames: int = 1,
-                     backend: str = "auto") -> irm.IRState:
+                     sample_rate: int, n_frames: int = 1) -> irm.IRState:
     """Run ``n_frames`` trace frames and accumulate them into ``state`` —
     the Update->RunSimulation->ProcessHits loop as one compiled scan.
 
     Each frame folds its index into the key (the functional analogue of the
     reference's ``rngStateOffset = Time.frameCount`` reseed,
-    RayTraceManager.cs:197), so frames are independent MC samples.
-
-    ``backend``: "auto" routes supported configs (any listener count via
-    blocked launches; bands limited by the single-listener VMEM histogram
-    budget) to the fused Pallas bounce kernel with in-kernel MXU
-    histogram on TPU (~4x faster than the XLA graph path); scenes past
-    the fused kernel's ~5k-wall VMEM ceiling route to the
-    cluster-early-out accel path (any wall count; K = 1 adds the
-    per-bounce Morton ray re-sort); "jnp" forces the reference XLA-graph
-    path; "fused"/"accel" force the respective kernel paths.
+    RayTraceManager.cs:197), so frames are independent MC samples. Every
+    platform runs this one XLA program: the trace of ``ops/trace.py`` and
+    the scatter-add deposit of ``ops/ir.py``.
     """
-    use_fused = (backend == "fused" or
-                 (backend == "auto"
-                  and _fused_eligible(scene, params, state.ir_length)))
-    if use_fused:
-        from .ops.pallas.bounce_kernel import trace_accumulate_fused
-        return trace_accumulate_fused(
-            scene, params, state, key, n_rays=n_rays,
-            max_bounces=max_bounces, sample_rate=sample_rate,
-            n_frames=n_frames)
-    use_accel = (backend == "accel" or
-                 (backend == "auto"
-                  and _accel_eligible(scene, params, state.ir_length)))
-    if use_accel:
-        from .ops.pallas.bounce_kernel import (trace_frames_ir_accel,
-                                               trace_frames_ir_accel_sorted)
-        if scene.n_bands == 1:
-            ir = trace_frames_ir_accel_sorted(
-                scene, params, key, n_rays=n_rays, max_bounces=max_bounces,
-                sample_rate=sample_rate, ir_length=state.ir_length,
-                n_frames=n_frames)
-        else:
-            ir = trace_frames_ir_accel(
-                scene, params, key, n_rays=n_rays, max_bounces=max_bounces,
-                sample_rate=sample_rate, ir_length=state.ir_length,
-                n_frames=n_frames)
-        return irm.IRState(sum=state.sum + ir,
-                           frames=state.frames + n_frames)
-
     def body(st, i):
         hits = trace_hits_only(scene, params, _rng.frame_key(key, i),
                                n_rays=n_rays, max_bounces=max_bounces)

@@ -10,7 +10,7 @@ buffer granularity — 1024 samples per callback
 to all channels and zeroing what it consumed.
 
 This module reproduces that two-clock contract end to end: a producer
-loop runs the TPU streaming step (trace -> crossfaded convolution) and
+loop runs the compiled streaming step (trace -> crossfaded convolution) and
 overlap-adds wet chunks into the host :class:`~.native.NativeRingBuffer`;
 a real consumer thread drains fixed DSP buffers on the audio clock. A
 sample index is *drainable* once the chunk whose head covers it has been

@@ -214,8 +214,8 @@ def city_scene(n_boxes: int = 2500, seed: int = 0, extent: float = 500.0,
                n_bands: int = 1) -> "RoomSetup":
     """Large-scene fixture: a bordered 'city' of randomly placed/rotated
     box obstacles — ``4*n_boxes + 4`` walls. Exists to exercise the
-    cluster-early-out acceleration path (docs/ACCEL.md) at wall counts far
-    beyond the reference's scenes (its max is ~20 segments,
+    trace at wall counts far beyond the reference's scenes (its max is
+    ~20 segments,
     ``Assets/Scenes/SmollRoom.unity``)."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder(n_bands=n_bands)

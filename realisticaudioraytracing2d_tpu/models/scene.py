@@ -3,7 +3,7 @@
 The reference flattens Unity ``Collider2D`` components into an edge-soup
 ``List<Segment>`` (``Assets/Script/Helpers/SceneHelper.cs:29-98``). This
 rebuild keeps the same *data contract* — each wall is a segment with start,
-end, outward normal and an acoustic material — but stores it TPU-first as a
+end, outward normal and an acoustic material — but stores it as a
 struct-of-arrays pytree (:class:`Scene`) with static, padded wall counts so
 every scene size maps to a small set of compiled shapes.
 

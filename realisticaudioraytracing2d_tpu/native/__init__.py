@@ -171,8 +171,8 @@ def flatten_loop(points: np.ndarray, transform: Tuple[float, ...]
 def morton_clusters(segments: np.ndarray, cluster_size: int
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Sort walls by Morton code of their centroid and emit per-cluster
-    AABBs over runs of ``cluster_size`` sorted walls (the chunk-early-out
-    kernel's input, see ops/accel.py). Degenerate padding segments sort
+    AABBs over runs of ``cluster_size`` sorted walls (the input of a
+    cluster early-out for large scenes). Degenerate padding segments sort
     last; padding-only clusters get an inverted AABB (never slab-hit).
     Returns ``(order[N] int32 permutation, aabb[n_clusters, 4] f32
     (xmin, ymin, xmax, ymax))``."""

@@ -1,6 +1,6 @@
 // Native host runtime: scene flattening + real-time audio ring buffer.
 //
-// These are the host-side (non-TPU) components of the framework whose
+// These are the host-side (off-device) components of the framework whose
 // reference counterparts are C# host code:
 //  * scene flattening  — SceneToData2D.GetSegmentsFromColliders
 //    (Assets/Script/Helpers/SceneHelper.cs:29-98): collider loops ->
@@ -95,9 +95,9 @@ int art_flatten_loop(const float* points, int n_pts, const float* transform,
 // ---------------------------------------------------------------------------
 // Sorts walls by the Morton (Z-order) code of their centroid and emits
 // per-cluster AABBs over runs of `cluster_size` sorted walls — the input
-// of the TPU chunk-early-out kernel (ops/accel.py): phase 1 slab-tests the
-// cluster AABBs, phase 2 only runs the dense wall pass for clusters some
-// ray in the tile can hit. Degenerate segments (a == b: the scene's
+// of a two-phase cluster early-out: phase 1 slab-tests the cluster
+// AABBs, phase 2 only runs the dense wall pass for clusters some ray in
+// a block can hit. Degenerate segments (a == b: the scene's
 // padding) sort last and clusters holding only padding get an inverted
 // AABB (+inf, -inf) no slab test can pass, so they are always skipped.
 // Returns the cluster count (= ceil(n_segs / cluster_size)).

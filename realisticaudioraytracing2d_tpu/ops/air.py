@@ -15,8 +15,7 @@ module adds the standard atmospheric model as a *post-pass* on the IR:
   (up to bin quantization, and up to media where the local sound speed
   differs from ``c`` — inside refractive obstacles the air model is
   nominal anyway). Because it never touches the trace, it composes with
-  every backend — jnp oracle, fused Pallas kernels, accel path — and
-  with already-accumulated or checkpointed IRs.
+  any traced IR, including already-accumulated or checkpointed ones.
 * :func:`band_frequencies` — log-spaced band centers for mapping the
   scene's abstract ``n_bands`` axis onto physical frequencies.
 """

@@ -26,8 +26,7 @@ ambient speed of sound (no medium tracking). The pass is deterministic —
 independent of rays/frames — so it composes with the Monte-Carlo IR as a
 per-frame additive term (see :func:`diffraction_ir` and the CLI's
 ``--diffraction``). Cost: O(W^2) ray-wall visibility tests + an O(W^2)
-endpoint-coincidence pass, fine for room-scale scenes (the accel path's
-cluster machinery is not needed at these sizes).
+endpoint-coincidence pass, fine for room-scale scenes.
 """
 
 from __future__ import annotations

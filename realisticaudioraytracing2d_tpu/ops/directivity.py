@@ -14,15 +14,8 @@ streaming) recompiles nothing.
 
 Because IR deposits are linear in a ray's initial energy, weighting
 emission by ``g`` is exact: every path from ray ``r`` scales by
-``g(theta_r)``. The weighting lives in the jnp oracle's emission
-(:func:`..trace._emit`) AND in the fused whole/mega/accel kernels
-(round 3: ``bounce_kernel._fourier_gain`` evaluates the same series
-in-kernel via the angle-addition recurrence — no trig), so on TPU
-directive sources and microphone patterns ride the fast path (~2.7x the
-oracle at the reference workload) at any scene size — the large-scene
-cluster-early-out paths weight emission/capture the same way (the
-sorted path pre-weights emission on the host; sorting permutes whole
-state columns, so the weight follows its ray).
+``g(theta_r)``. The weighting lives in the trace's emission
+(:func:`..trace._emit`) and at both capture sites (microphone patterns).
 
 Presets return exact coefficients; :func:`from_function` projects any
 callable pattern onto ``n_harmonics`` via FFT. ``mean power = c[0]``,

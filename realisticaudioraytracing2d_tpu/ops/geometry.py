@@ -5,8 +5,7 @@ Behavioral spec comes from the reference's HLSL math library
 (``Assets/Script/Common.hlsl:14-43``), re-expressed as pure, fully
 broadcastable jax.numpy functions. Nothing here loops: the pairwise forms
 are written as outer-product style broadcasts so XLA can fuse them into a
-single VPU pass over [rays, walls] tiles (and a Pallas kernel can later tile
-them through VMEM explicitly).
+single elementwise pass over [rays, walls] feeding the min reductions.
 
 Conventions
 -----------

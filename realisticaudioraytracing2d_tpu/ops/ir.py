@@ -3,9 +3,12 @@
 Replaces the reference's ``ProcessHits`` / ``ClearImpulse`` kernels
 (``Assets/Script/Raytrace2D.compute:157-172``): each hit deposits its energy
 into IR bin ``floor(timeDelay * SampleRate)``. The reference does this with
-a **non-atomic** ``+=`` across GPU threads — racy and nondeterministic
-(SURVEY.md section 5); here it's an XLA scatter-add, deterministic by
-construction (a regression test asserts bit-equality across reruns).
+a **non-atomic** ``+=`` across GPU threads — racy, so updates are lost
+(SURVEY.md section 5); here it's an XLA scatter-add, which loses none. On
+the CPU its summation order is fixed and reruns are bit-equal (a
+regression test asserts it). On the GPU, XLA lowers a float scatter-add
+to atomics whose order varies, so reruns agree to float rounding but not
+bit for bit (the README's "Determinism" has the H100 figure).
 
 The banded path generalizes the legacy time x frequency IR
 (``RaytraceOcclusion2D.compute:234-252``): energies already arrive per-band
@@ -76,7 +79,7 @@ def scatter_hits(hits: Hits, sample_rate: int, ir_length: int) -> jax.Array:
 
     Bin index is ``floor(delay * sample_rate)``; out-of-range or invalid
     hits are dropped — matching ``ProcessHits``'s bounds check
-    (``Raytrace2D.compute:162-163``) but deterministically.
+    (``Raytrace2D.compute:162-163``) without losing concurrent updates.
     """
     delay, valid, energy = _flatten_hits(hits)
     k = energy.shape[-1]

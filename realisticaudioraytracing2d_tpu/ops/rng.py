@@ -1,8 +1,8 @@
 """Counter-based random number generation.
 
 The production path uses ``jax.random`` (threefry) keys folded with the
-frame counter — the TPU-native, reproducible analogue of the reference's
-``rngStateOffset = Time.frameCount`` per-frame reseeding
+frame counter — the reproducible, platform-independent analogue of the
+reference's ``rngStateOffset = Time.frameCount`` per-frame reseeding
 (``RayTraceManager.cs:197``).
 
 For cross-checking emission/scattering *distributions* against the

@@ -8,13 +8,13 @@ occlusion checking, per-material absorption with an energy cutoff,
 probabilistic transmission with Snell refraction and medium speed change, and
 a specular/diffuse reflection lerp.
 
-TPU-first re-design (not a translation):
+Array-program re-design (not a translation):
 
 * one GPU thread per ray  ->  a single ``lax.scan`` over bounces whose body
   operates on struct-of-arrays ray state ``[R]`` / ``[R, 2]``;
 * per-thread ``break``/``continue``  ->  ``alive`` masks and ``jnp.where``;
-* brute-force wall loop  ->  one fused ``[R, W]`` elementwise pass
-  (:func:`..geometry.pairwise_ray_segment_t`), Pallas-tileable;
+* brute-force wall loop  ->  one ``[R, W]`` elementwise pass
+  (:func:`..geometry.pairwise_ray_segment_t`) reduced by min/argmin;
 * ``AppendStructuredBuffer`` hits  ->  fixed-shape masked hit records
   ``[bounces, 2, rays, listeners]`` (slot 0 = direct capture, 1 = NEE);
 * scalar energy  ->  optional frequency-banded energy ``[R, K]`` with
@@ -147,12 +147,10 @@ def _emit(params: TraceParams, n_rays: int, n_bands: int,
 
 
 def _bounce(scene: Scene, params: TraceParams, st: _RayState,
-            u: jax.Array, walls_packed=None,
+            u: jax.Array,
             transmission_surrogate: bool = False) -> Tuple[_RayState, Tuple]:
     """One bounce for all rays. ``u[R, 3]`` are this bounce's uniforms
-    (transmission test / refraction jitter / diffuse angle). When
-    ``walls_packed`` is given, the two rays x walls passes run as Pallas
-    kernels (VMEM-tiled, see ``.pallas.trace_kernel``).
+    (transmission test / refraction jitter / diffuse angle).
 
     ``transmission_surrogate=True`` swaps the hard ``u < transmission``
     branch (``Raytrace2D.compute:124`` — zero pathwise gradient a.e.) for
@@ -166,12 +164,8 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
     c = params.speed_of_sound
 
     # --- nearest wall (hot x hot: rays x walls, Raytrace2D.compute:69-72) --
-    if walls_packed is not None:
-        from .pallas.trace_kernel import nearest_hit_pallas
-        closest, hit_idx = nearest_hit_pallas(st.pos, st.dir, walls_packed)
-    else:
-        t_wall = pairwise_ray_segment_t(st.pos, st.dir, scene.a, scene.b)
-        closest, hit_idx = nearest_hit(t_wall)       # [R], [R]
+    t_wall = pairwise_ray_segment_t(st.pos, st.dir, scene.a, scene.b)
+    closest, hit_idx = nearest_hit(t_wall)           # [R], [R]
     hit_wall = (hit_idx >= 0) & st.alive
 
     # --- direct listener capture, only outside walls (compute:74-84) -------
@@ -213,16 +207,9 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
     dist_lis = jnp.sqrt(jnp.maximum(dot2(to_lis, to_lis), 1e-20))  # [R, L]
     vis_dir = (listeners[None, :, :] - nee_src[:, None, :]) \
         / dist_lis[..., None]
-    if walls_packed is not None:
-        from .pallas.trace_kernel import occlusion_min_pallas
-        n_l = listeners.shape[0]
-        occ_src = jnp.broadcast_to(nee_src[:, None, :],
-                                   (nee_src.shape[0], n_l, 2))
-        occ_min = occlusion_min_pallas(occ_src, vis_dir, walls_packed)
-    else:
-        t_occ = pairwise_ray_segment_t(nee_src[:, None, :], vis_dir,
-                                       scene.a, scene.b)      # [R, L, W]
-        occ_min = jnp.min(t_occ, axis=-1)
+    t_occ = pairwise_ray_segment_t(nee_src[:, None, :], vis_dir,
+                                   scene.a, scene.b)          # [R, L, W]
+    occ_min = jnp.min(t_occ, axis=-1)
     visible = occ_min >= dist_lis - OCCLUSION_SLACK
 
     eff_sign = jnp.where(dot2(st.dir, w_n) > 0.0, -1.0, 1.0)  # [R]
@@ -320,11 +307,10 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
 
 
 @partial(jax.jit,
-         static_argnames=("n_rays", "max_bounces", "n_debug", "use_pallas",
+         static_argnames=("n_rays", "max_bounces", "n_debug",
                           "transmission_surrogate"))
 def trace(scene: Scene, params: TraceParams, key: jax.Array, *,
           n_rays: int, max_bounces: int, n_debug: int = 0,
-          use_pallas: bool = False,
           transmission_surrogate: bool = False
           ) -> Tuple[Hits, Optional[DebugPaths]]:
     """Trace ``n_rays`` stochastic rays for ``max_bounces`` bounces.
@@ -332,20 +318,14 @@ def trace(scene: Scene, params: TraceParams, key: jax.Array, *,
     Returns fixed-shape :class:`Hits` (and :class:`DebugPaths` when
     ``n_debug > 0``). Deterministic for a given key: same key -> bit-equal
     hits (fixing the reference's non-atomic scatter race, SURVEY.md section 5).
-    ``use_pallas`` routes the rays x walls passes through the VMEM-tiled
-    Pallas kernels (interpreted off-TPU).
     """
     n_bands = scene.n_bands
     emit_jitter, u = _rng.bounce_uniforms(key, max_bounces, n_rays)
     st0 = _emit(params, n_rays, n_bands, emit_jitter)
-    walls_packed = None
-    if use_pallas:
-        from .pallas.trace_kernel import pack_walls
-        walls_packed = pack_walls(scene.a, scene.b)
 
     def body(st, u_b):
         st_next, (delay, energy, valid, pos, hit_wall) = \
-            _bounce(scene, params, st, u_b, walls_packed,
+            _bounce(scene, params, st, u_b,
                     transmission_surrogate=transmission_surrogate)
         dbg = None
         if n_debug > 0:
@@ -374,11 +354,9 @@ def trace(scene: Scene, params: TraceParams, key: jax.Array, *,
 
 def trace_hits_only(scene: Scene, params: TraceParams, key: jax.Array, *,
                     n_rays: int, max_bounces: int,
-                    use_pallas: bool = False,
                     transmission_surrogate: bool = False) -> Hits:
     """Hits-only wrapper, convenient under vmap/shard_map."""
     hits, _ = trace(scene, params, key, n_rays=n_rays,
                     max_bounces=max_bounces, n_debug=0,
-                    use_pallas=use_pallas,
                     transmission_surrogate=transmission_surrogate)
     return hits

@@ -33,21 +33,12 @@ def accumulate_frames_sharded(scene: Scene, params: TraceParams,
                               state: irm.IRState, key: jax.Array,
                               mesh: Mesh, *, n_rays: int, max_bounces: int,
                               sample_rate: int, n_frames: int,
-                              axis: str = "rooms",
-                              backend: str = "auto") -> irm.IRState:
+                              axis: str = "rooms") -> irm.IRState:
     """Accumulate ``n_frames`` MC frames with the frame loop split across
     ``mesh[axis]``; returns ``state`` advanced by all ``n_frames`` (the
-    replicated psum of per-device partial sums).
-
-    Backend routing mirrors the single-chip engine (round 3 — VERDICT r2
-    weak #1): on TPU, device ``d`` runs its ``local`` frames as ONE
-    launch of the multi-frame mega kernel (on-core PRNG seeded from
-    ``fold_in(key, d)`` — a per-device-deterministic stream); with
-    ``backend="fused"`` off-TPU, a scan of interpret-mode whole-frame
-    kernels with ``fold_in(key, d*local + i)`` — the SAME per-frame key
-    stream the unsharded ``trace_accumulate_fused`` interpret path uses,
-    so fused sharded == fused unsharded up to psum order. The jnp path
-    keeps the ``frame_key(key, i)`` stream of the unsharded engine scan.
+    replicated psum of per-device partial sums). Device ``d`` scans
+    frames ``d*local .. (d+1)*local - 1`` with the ``frame_key(key, i)``
+    stream of the unsharded engine scan.
     """
     n_dev = mesh.shape[axis]
     if n_frames % n_dev != 0:
@@ -55,8 +46,6 @@ def accumulate_frames_sharded(scene: Scene, params: TraceParams,
             f"n_frames={n_frames} not divisible by {axis}={n_dev}")
     local = n_frames // n_dev
     other_axes = tuple(a for a in mesh.axis_names if a != axis)
-    from .rays import _fused_mode
-    mode = _fused_mode(scene, params, state.ir_length, backend)
 
     # check_vma off for the same reason as parallel/rays.py: the scan
     # carry mixes replicated operands with the device-varying frame index;
@@ -67,34 +56,15 @@ def accumulate_frames_sharded(scene: Scene, params: TraceParams,
     def run():
         d = jax.lax.axis_index(axis)
 
-        if mode == "mega":
-            from ..ops.pallas.bounce_kernel import trace_frames_ir_mega
-            acc = trace_frames_ir_mega(
-                scene, params, jax.random.fold_in(key, d), n_rays=n_rays,
-                max_bounces=max_bounces, sample_rate=sample_rate,
-                ir_length=state.ir_length, n_frames=local)
-        elif mode == "whole":
-            from ..ops.pallas.bounce_kernel import trace_frame_ir_whole
+        def body(acc, i):
+            hits = trace_hits_only(
+                scene, params, _rng.frame_key(key, d * local + i),
+                n_rays=n_rays, max_bounces=max_bounces)
+            return acc + irm.scatter_hits(hits, sample_rate,
+                                          state.ir_length), None
 
-            def body(acc, i):
-                ir = trace_frame_ir_whole(
-                    scene, params, jax.random.fold_in(key, d * local + i),
-                    n_rays=n_rays, max_bounces=max_bounces,
-                    sample_rate=sample_rate, ir_length=state.ir_length)
-                return acc + ir, None
-
-            acc, _ = jax.lax.scan(body, jnp.zeros_like(state.sum),
-                                  jnp.arange(local, dtype=jnp.int32))
-        else:
-            def body(acc, i):
-                hits = trace_hits_only(
-                    scene, params, _rng.frame_key(key, d * local + i),
-                    n_rays=n_rays, max_bounces=max_bounces)
-                return acc + irm.scatter_hits(hits, sample_rate,
-                                              state.ir_length), None
-
-            acc, _ = jax.lax.scan(body, jnp.zeros_like(state.sum),
-                                  jnp.arange(local, dtype=jnp.int32))
+        acc, _ = jax.lax.scan(body, jnp.zeros_like(state.sum),
+                              jnp.arange(local, dtype=jnp.int32))
         total = jax.lax.psum(acc, axis)
         for a in other_axes:
             total = jax.lax.pmean(total, a)

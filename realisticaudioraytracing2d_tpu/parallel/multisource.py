@@ -6,8 +6,8 @@ then *mix down* by summing IRs at the listener — physically exact because
 IR construction is linear in hit energy.
 
 Across a device mesh, sources shard over the ``"rays"`` axis (shard_map)
-and the mixdown is a ``jax.lax.psum`` — the ICI collective replacing
-nothing in the reference (it has no multi-source mode at all).
+and the mixdown is a ``jax.lax.psum`` — a collective replacing nothing in
+the reference (it has no multi-source mode at all).
 """
 
 from __future__ import annotations
@@ -23,53 +23,22 @@ from ..ops.trace import TraceParams, trace_hits_only
 
 
 @partial(jax.jit, static_argnames=("n_rays", "max_bounces", "sample_rate",
-                                   "ir_length", "backend"))
+                                   "ir_length"))
 def trace_sources_mixdown(scene: Scene, params: TraceParams,
                           key: jax.Array, *, n_rays: int, max_bounces: int,
-                          sample_rate: int, ir_length: int,
-                          backend: str = "auto") -> jax.Array:
+                          sample_rate: int, ir_length: int) -> jax.Array:
     """Trace S sources (``params.source`` shaped [S, 2], per-source gain
     allowed via broadcastable ``input_gain``) and return the summed IR
-    ``[L, T, K]`` at the shared listener(s).
-
-    ``backend="auto"`` routes each source through the fused TPU kernel
-    (scan over sources; source pose/gain are traced values, so one
-    compile); off-TPU it vmaps the jnp path.
+    ``[L, T, K]`` at the shared listener(s). The sources are vmapped
+    through the trace with keys ``split(key, S)``.
 
     ``params.directivity`` may be ``[C]`` (every source shares the
     pattern) or ``[S, C]`` — PER-SOURCE aims, e.g. a steered speaker
-    array; both run in-kernel on the fused path (round 3), and
-    ``params.mic_directivity`` rides along unchanged."""
-    from ..engine import _rooms_fused_eligible
-    from ..ops.pallas.bounce_kernel import trace_rooms_ir_mega
-
+    array; ``params.mic_directivity`` rides along unchanged."""
     sources = jnp.atleast_2d(params.source)
     n_src = sources.shape[0]
     gains = jnp.broadcast_to(jnp.asarray(params.input_gain), (n_src,))
     keys = jax.random.split(key, n_src)
-
-    use_fused = (backend == "fused" or
-                 (backend == "auto"
-                  and _rooms_fused_eligible(scene, params, ir_length)))
-    if use_fused:
-        # ONE kernel launch for the whole source batch: sources ride the
-        # rooms-batch grid axis of the rooms-mega kernel with the scene
-        # tables SHARED (leading dim 1 — no HBM replication). Replaces
-        # the per-source lax.scan of launches (~launch+dispatch latency
-        # per source); mixdown stays a host-side sum (linear in energy).
-        n_l = params.listeners.shape[0]
-        shared = jax.tree_util.tree_map(lambda x: x[None], scene)
-        lis = jnp.broadcast_to(params.listeners[None],
-                               (n_src, n_l, 2)).astype(jnp.float32)
-        irs = trace_rooms_ir_mega(
-            shared, sources.astype(jnp.float32), lis, key,
-            n_rays=n_rays, max_bounces=max_bounces,
-            sample_rate=sample_rate, ir_length=ir_length, n_frames=1,
-            listener_radius=params.listener_radius,
-            speed_of_sound=params.speed_of_sound,
-            input_gain=gains, directivity=params.directivity,
-            mic_directivity=params.mic_directivity)   # [S, L, T, K]
-        return jnp.sum(irs, axis=0)
 
     def one(src, gain, d, k):
         p = params._replace(source=src, input_gain=gain, directivity=d)
@@ -91,13 +60,10 @@ def trace_sources_mixdown_sharded(scene: Scene, params: TraceParams,
                                   key: jax.Array, mesh: Mesh, *,
                                   n_rays: int, max_bounces: int,
                                   sample_rate: int, ir_length: int,
-                                  axis: str = "rays",
-                                  backend: str = "auto") -> jax.Array:
+                                  axis: str = "rays") -> jax.Array:
     """Mesh-sharded variant: sources split across ``axis``; each device
-    traces its shard (through the same backend routing as the unsharded
-    mixdown — the fused rooms kernel runs PER SHARD on TPU, interpret
-    whole-frame scan with ``backend="fused"`` off-TPU) and the final
-    mixdown is a ``psum`` over ICI.
+    traces its shard through :func:`trace_sources_mixdown` and the final
+    mixdown is a ``psum`` across the mesh.
 
     ``params.source`` must be [S, 2] with S divisible by the axis size.
     Returns the replicated summed IR [L, T, K].
@@ -134,8 +100,7 @@ def trace_sources_mixdown_sharded(scene: Scene, params: TraceParams,
                             else dir_shard),
             key_shard[0],
             n_rays=n_rays, max_bounces=max_bounces,
-            sample_rate=sample_rate, ir_length=ir_length,
-            backend=backend)
+            sample_rate=sample_rate, ir_length=ir_length)
         total = jax.lax.psum(local, axis)
         for a in other_axes:
             total = jax.lax.pmean(total, a)

@@ -8,11 +8,6 @@ stratified fan of ``n_rays/n_dev`` strata, so the union is an unbiased
 estimator whose stratification granularity is per-device (coarser than a
 single ``n_rays``-stratum fan, with independent jitter making up the
 variance difference).
-
-Round 3: each shard routes through the same backend selection as the
-single-chip engine — the fused Pallas kernels (mega on TPU, interpret
-whole-frame off-TPU) run INSIDE ``shard_map``, so a pod runs the fast
-path per chip instead of the jnp oracle (VERDICT r2 weak #1).
 """
 
 from __future__ import annotations
@@ -20,47 +15,25 @@ from __future__ import annotations
 from functools import partial
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..models.scene import Scene
 from ..ops import ir as irm
-from ..ops import rng as _rng
-from ..ops.geometry import PI
 from ..ops.trace import TraceParams, trace_hits_only
-
-
-def _fused_mode(scene: Scene, params: TraceParams, ir_length: int,
-                backend: str) -> str:
-    """Static per-shard kernel choice: ``"mega"`` (TPU multi-frame kernel,
-    on-core PRNG), ``"whole"`` (host-uniform whole-frame kernel — the
-    interpret-mode fused path off-TPU), or ``"jnp"``. ``backend="auto"``
-    only goes fused on real TPU (interpret Pallas is slower than the XLA
-    graph path); ``backend="fused"`` forces the fused kernels everywhere,
-    which is how the virtual-CPU mesh tests prove fused-under-shard_map
-    parity."""
-    if backend == "fused":
-        return "mega" if jax.default_backend() == "tpu" else "whole"
-    if backend == "auto":
-        from ..engine import _fused_eligible
-        if _fused_eligible(scene, params, ir_length):
-            return "mega"
-    return "jnp"
 
 
 def trace_rays_sharded(scene: Scene, params: TraceParams, key: jax.Array,
                        mesh: Mesh, *, n_rays: int, max_bounces: int,
                        sample_rate: int, ir_length: int,
-                       axis: str = "rays",
-                       backend: str = "auto") -> jax.Array:
+                       axis: str = "rays") -> jax.Array:
     """Trace ``n_rays`` split across ``mesh[axis]``; returns the replicated
-    summed IR ``[L, T, K]`` (partial scatters psum-reduced over ICI)."""
+    summed IR ``[L, T, K]`` (partial scatters psum-reduced across the
+    mesh)."""
     n_dev = mesh.shape[axis]
     if n_rays % n_dev != 0:
         raise ValueError(f"n_rays={n_rays} not divisible by {axis}={n_dev}")
     local_rays = n_rays // n_dev
     other_axes = tuple(a for a in mesh.axis_names if a != axis)
-    mode = _fused_mode(scene, params, ir_length, backend)
 
     # check_vma off: the scan carry mixes replicated params with
     # device-varying RNG, which the varying-manual-axes checker rejects;
@@ -74,22 +47,9 @@ def trace_rays_sharded(scene: Scene, params: TraceParams, key: jax.Array,
         # Each shard emits an independent full-circle fan; the psum of
         # the partial IRs is one MC frame's IR (no rescaling: energies
         # are per-ray).
-        if mode == "mega":
-            from ..ops.pallas.bounce_kernel import trace_frames_ir_mega
-            local_ir = trace_frames_ir_mega(
-                scene, params, k, n_rays=local_rays,
-                max_bounces=max_bounces, sample_rate=sample_rate,
-                ir_length=ir_length, n_frames=1)
-        elif mode == "whole":
-            from ..ops.pallas.bounce_kernel import trace_frame_ir_whole
-            local_ir = trace_frame_ir_whole(
-                scene, params, k, n_rays=local_rays,
-                max_bounces=max_bounces, sample_rate=sample_rate,
-                ir_length=ir_length)
-        else:
-            hits = trace_hits_only(scene, params, k, n_rays=local_rays,
-                                   max_bounces=max_bounces)
-            local_ir = irm.scatter_hits(hits, sample_rate, ir_length)
+        hits = trace_hits_only(scene, params, k, n_rays=local_rays,
+                               max_bounces=max_bounces)
+        local_ir = irm.scatter_hits(hits, sample_rate, ir_length)
         total = jax.lax.psum(local_ir, axis)
         for a in other_axes:
             total = jax.lax.pmean(total, a)

@@ -2,22 +2,14 @@
 
 IR dataset generation: a batch of procedurally generated rooms (a stacked
 :class:`~..models.scene.Scene` pytree) is sharded over the ``"rooms"`` mesh
-axis with ``shard_map``; each device runs its local rooms through the SAME
-backend routing as the single-device sweep — on TPU that is the
-rooms-batched mega kernel (one launch per shard), off-TPU the interpret
-whole-frame scan (``backend="fused"``) or the vmapped jnp oracle
-(``backend="jnp"``/ineligible). Results are gathered back as the
-``[n_rooms, L, T, K]`` IR dataset. The reference has no batch mode at all —
-its closest analogue is re-running the Unity scene per room (SURVEY.md
-section 2.4).
+axis with ``shard_map``; each device runs its local rooms through the same
+vmapped sweep as the single-device path, and the results are gathered back
+as the ``[n_rooms, L, T, K]`` IR dataset. The reference has no batch mode
+at all — its closest analogue is re-running the Unity scene per room
+(SURVEY.md section 2.4).
 
-Round 3: ``sweep_rooms_sharded`` moved from a GSPMD-sharded ``jit`` (which
-had never partitioned a ``pallas_call`` on real hardware) to explicit
-``shard_map`` — each shard launches its own kernel on its local rooms, so
-the multi-chip path runs the same code the single-chip fast path does.
-Per-room RNG is indexed by GLOBAL room id (``room_offset``), making the
-sharded jnp sweep bit-identical to the unsharded one and the fused seed
-plan disjoint across shards by construction.
+Per-room RNG is indexed by GLOBAL room id (``room_offset``), so every room
+draws the same stream whether the batch is sharded or not.
 """
 
 from __future__ import annotations
@@ -33,59 +25,30 @@ from ..ops.trace import TraceParams, trace_hits_only
 
 
 @partial(jax.jit, static_argnames=("n_rays", "max_bounces", "sample_rate",
-                                   "ir_length", "n_frames", "backend"))
+                                   "ir_length", "n_frames"))
 def sweep_rooms(scenes: Scene, sources: jax.Array, listeners: jax.Array,
                 key: jax.Array, *, n_rays: int, max_bounces: int,
                 sample_rate: int, ir_length: int, n_frames: int = 1,
                 listener_radius: float = 0.5, speed_of_sound: float = 343.0,
-                input_gain: float = 1.0, backend: str = "auto",
-                room_offset=0, directivity=None,
+                input_gain: float = 1.0, room_offset=0, directivity=None,
                 mic_directivity=None) -> jax.Array:
     """Sweep a whole room batch on one device: returns IRs
     ``[n_rooms, L, T, K]``. ``scenes`` is a stacked Scene (leading room
     axis), ``sources``/``listeners`` are ``[n_rooms, 2]`` (listeners may be
-    ``[n_rooms, L, 2]``).
-
-    ``backend="auto"`` runs the whole dataset in ONE launch of the fused
-    TPU rooms-mega kernel (over-VMEM histograms as IR time windows);
-    off-TPU it vmaps the jnp path. ``backend="fused"`` forces the fused
-    route (interpret-mode whole-frame scan off-TPU).
+    ``[n_rooms, L, 2]``). The rooms are vmapped through the trace and
+    the deposit in one program.
 
     ``room_offset`` (traced) is the GLOBAL index of row 0 — mesh shards
-    pass their shard offset so per-room RNG streams are indexed by global
-    room id (jnp path: ``fold_in(key, offset + i)``; fused path: the
-    structurally-striped seed plan shifted by ``offset`` entries).
+    pass their shard offset so room ``i`` traces with
+    ``fold_in(key, offset + i)``.
 
     ``directivity`` (``[C]`` shared or ``[R, C]`` per room) and
     ``mic_directivity`` (``[C]``, ``[L, C]``, ``[R, L, C]``) apply the
-    same in-kernel Fourier-gain weighting as the single-scene paths
-    (round 3) on both routes."""
+    same Fourier-gain weighting as the single-scene trace."""
     n_rooms = sources.shape[0]
     room_ids = (jnp.asarray(room_offset, jnp.int32)
                 + jnp.arange(n_rooms, dtype=jnp.int32))
     keys = jax.vmap(lambda i: jax.random.fold_in(key, i))(room_ids)
-
-    p0 = TraceParams.make(sources[0], listeners[0], listener_radius,
-                          speed_of_sound, input_gain)
-    from ..engine import _rooms_fused_eligible
-    use_fused = (backend == "fused" or
-                 (backend == "auto"
-                  and _rooms_fused_eligible(_index_scene(scenes, 0), p0,
-                                      ir_length)))
-    if use_fused:
-        # whole dataset in ONE kernel launch: rooms are the leading grid
-        # axis of the mega kernel (replaces the round-1 serial scan that
-        # paid one launch sequence per room)
-        from ..ops.pallas.bounce_kernel import trace_rooms_ir_mega
-        irs = trace_rooms_ir_mega(
-            scenes, sources, listeners, key, n_rays=n_rays,
-            max_bounces=max_bounces, sample_rate=sample_rate,
-            ir_length=ir_length, n_frames=n_frames,
-            listener_radius=listener_radius,
-            speed_of_sound=speed_of_sound, input_gain=input_gain,
-            seed_offset=room_offset, directivity=directivity,
-            mic_directivity=mic_directivity)
-        return irs / n_frames
 
     n_l = listeners.shape[1] if listeners.ndim == 3 else 1
     # explicit omni rows keep one_room uniform under vmap; multiplying
@@ -118,25 +81,16 @@ def sweep_rooms(scenes: Scene, sources: jax.Array, listeners: jax.Array,
     return jax.vmap(one_room)(scenes, sources, listeners, dirs, mics, keys)
 
 
-def _index_scene(scenes: Scene, i: int) -> Scene:
-    return jax.tree_util.tree_map(lambda x: x[i], scenes)
-
-
 def sweep_rooms_sharded(scenes: Scene, sources: jax.Array,
                         listeners: jax.Array, key: jax.Array, mesh: Mesh, *,
                         n_rays: int, max_bounces: int, sample_rate: int,
                         ir_length: int, n_frames: int = 1,
-                        axis: str = "rooms", backend: str = "auto",
-                        **pose_kw) -> jax.Array:
+                        axis: str = "rooms", **pose_kw) -> jax.Array:
     """Shard the room batch over ``mesh[axis]`` with ``shard_map``; each
-    device sweeps its local rooms through :func:`sweep_rooms` (same
-    backend routing as single-device — the fused kernels run PER SHARD,
-    not through GSPMD partitioning of one launch), and the dataset is
-    gathered from the sharded output. Room count must divide evenly.
-
-    jnp-path results are bit-identical to the unsharded sweep (per-room
-    keys are global-id-indexed); fused-path results are per-shard seed
-    plans, disjoint across shards by construction."""
+    device sweeps its local rooms through :func:`sweep_rooms`, and the
+    dataset is gathered from the sharded output. Room count must divide
+    evenly. Per-room keys are global-id-indexed, so each room draws the
+    same stream as in the unsharded sweep."""
     n_rooms = sources.shape[0]
     n_dev = mesh.shape[axis]
     if n_rooms % n_dev != 0:
@@ -156,7 +110,7 @@ def sweep_rooms_sharded(scenes: Scene, sources: jax.Array,
         irs = sweep_rooms(scenes_l, src_l, lis_l, key, n_rays=n_rays,
                           max_bounces=max_bounces, sample_rate=sample_rate,
                           ir_length=ir_length, n_frames=n_frames,
-                          backend=backend, room_offset=d * local,
+                          room_offset=d * local,
                           **pose_kw)
         for a in other:
             irs = jax.lax.pmean(irs, a)   # no-op for size-1 extra axes

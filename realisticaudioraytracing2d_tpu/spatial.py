@@ -50,11 +50,9 @@ What it buys:
   first-order head-shadow level difference, diffuse energy reaches both
   ears unlateralized. CLI: ``bake --binaural FACING_DEG``.
 
-On TPU the capture runs in the fused mega kernel (round 3:
-``bounce_kernel._fourier_gain`` weights capture in-kernel, so
-``engine._fused_eligible`` routes directive mics fused — ~5x the jnp
-oracle for this 3-mic trace, ~1 ms/frame at the reference workload);
-off-TPU it runs on the jnp oracle.
+The capture is one trace with three pattern-weighted listeners at the
+head position, through the same :func:`..engine.trace_accumulate` as
+any other trace.
 """
 
 from __future__ import annotations

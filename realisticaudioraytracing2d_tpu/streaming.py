@@ -342,79 +342,8 @@ def _band_windows(window: jax.Array, k: int) -> jax.Array:
     return jnp.fft.irfft(x[None, :] * masks, n_fft)[:, :wd]
 
 
-def _tap_glide(bound: float) -> Optional[float]:
-    """Glide bound for :func:`_tap_chunk`'s lane fast path on
-    accelerator backends, ``None`` (the gather formulation) on CPU:
-    XLA-CPU lowers the gather to cheap vectorized loads (~2.5 ms at
-    composed shapes) while the ~J shifted lane slices cost ~86 ms
-    there — the exact inverse of the TPU profile, where the gather
-    serializes (~11 ms) and the lanes are ~1 ms of VPU work. Resolved
-    at trace time (the backend is fixed per compiled program)."""
-    return None if jax.default_backend() == "cpu" else bound
-
-
-def _tap_chunk_lanes(dry_bands: jax.Array, tau0, tau1, g0, g1, valid,
-                     n: int, max_glide: float) -> jax.Array:
-    """Lane-decomposed tap synthesis — the TPU fast path of
-    :func:`_tap_chunk`, bit-identical to its gather formulation.
-
-    XLA lowers the gather ``dry[lo_i]`` (1.4 M two-point lookups at the
-    composed binaural shape) to serial scalar loads — measured ~11 ms of
-    an ~18 ms chunk on v5e. But a tap's read position ``p(s) = (Wd - n)
-    + s - tau(s)`` moves at ~1 sample/sample: over the whole chunk it
-    stays within ``|tau1 - tau0| <= max_glide`` bins of the diagonal.
-    So per tap row, slice one contiguous strip ``strip[s + j]`` aligned
-    to the glide's far end and rebuild the two-point interpolation from
-    ``J = max_glide + 6`` STATICALLY-shifted lane slices selected by
-    equality masks — pure VPU shift/compare/FMA work, no gather. Each
-    output sample receives exactly ``W[lo]*(1-frac) + W[hi]*frac`` (two
-    nonzero lane terms; adding zeros is exact in f32), so every
-    per-tap read matches the gather path bit-for-bit wherever the
-    glide bound holds (the final sum over taps may be reassociated by
-    XLA — f32-eps noise); reads outside the strip (a caller exceeding
-    ``max_glide``) are masked to 0 rather than misread.
-
-    ``tau0/tau1/g0/g1`` must already be in the full ``[L, A, 3, K]``
-    form (:func:`_tap_chunk` promotes); ``dry_bands`` is ``[K, Wd]``."""
-    l, a, _, k = tau0.shape
-    wd = dry_bands.shape[-1]
-    j_lanes = int(np.ceil(max_glide)) + 6
-    ls = n + j_lanes
-    s = jnp.arange(n, dtype=jnp.float32)
-    r = s / jnp.float32(max(1, n))
-    tau = tau0[..., None] + (tau1 - tau0)[..., None] * r  # [L, A, 3, K, n]
-    g = g0[..., None] + (g1 - g0)[..., None] * r
-    p = (wd - n) + s - tau
-    lo = jnp.floor(p)
-    frac = (p - lo).reshape(-1, n)                        # [R, n]
-    # per-row strip: base at the glide's maximal delay so jrel >= 0
-    base = (wd - n) - jnp.ceil(jnp.maximum(tau0, tau1)) - 2.0
-    base = base.astype(jnp.int32).reshape(-1)             # [R]
-    rows_k = jnp.broadcast_to(jnp.arange(k)[None, None, None, :],
-                              (l, a, 3, k)).reshape(-1)
-    pad = jnp.zeros((dry_bands.shape[0], ls + 4), dry_bands.dtype)
-    wpad = jnp.concatenate([pad, dry_bands, pad], axis=-1)
-    strip = jax.vmap(lambda kk, st: jax.lax.dynamic_slice(
-        wpad, (kk, st + ls + 4), (1, ls))[0])(rows_k, base)  # [R, LS]
-    jrel = lo.reshape(-1, n).astype(jnp.int32) - base[:, None] \
-        - jnp.arange(n, dtype=jnp.int32)[None, :]         # [R, n]
-
-    def body(jj, acc):
-        sl = jax.lax.dynamic_slice(strip, (0, jj), (strip.shape[0], n))
-        wgt = (jnp.where(jrel == jj, 1.0 - frac, 0.0)
-               + jnp.where(jrel == jj - 1, frac, 0.0))
-        return acc + wgt * sl
-
-    y = jax.lax.fori_loop(0, j_lanes, body,
-                          jnp.zeros((strip.shape[0], n), jnp.float32))
-    y = y.reshape(l, a, 3, k, n)
-    y = jnp.where((p >= 0) & (p <= wd - 1), y, 0.0)
-    return jnp.sum(jnp.where(valid[:, :, None, None, None], g * y, 0.0),
-                   axis=(1, 2, 3))
-
-
 def _tap_chunk(dry_window: jax.Array, tau0, tau1, g0, g1, valid,
-               n: int, max_glide: Optional[float] = None) -> jax.Array:
+               n: int) -> jax.Array:
     """``[L, n]`` sum of time-varying 3-bin taps. ``dry_window`` is
     ``[Wd]`` mono or ``[K, Wd]`` band-split (:func:`_band_windows`),
     ending at the chunk end: its sample ``Wd - n + s`` is the chunk's
@@ -436,13 +365,8 @@ def _tap_chunk(dry_window: jax.Array, tau0, tau1, g0, g1, valid,
     equals the removed bins' convolution bit-for-bit; a gliding delay
     advances ``1 - dtau/n`` dry samples per output sample — the
     per-path Doppler rate. Reads before the window (silence before the
-    clip) are 0.
-
-    ``max_glide`` (static; callers pass their matching radius plus the
-    ITD slack) bounds ``|tau1 - tau0|`` and routes to the
-    lane-decomposed synthesis (:func:`_tap_chunk_lanes`, bit-identical,
-    ~10x faster on TPU); ``None`` keeps the reference gather
-    formulation."""
+    clip) are 0. The two-point reads are one gather per bin (XLA:GPU
+    lowers it to parallel loads)."""
     dry_bands = dry_window[None, :] if dry_window.ndim == 1 else dry_window
     if tau0.ndim == 2:
         off = jnp.arange(-1, 2, dtype=jnp.float32)[None, None, :]
@@ -456,14 +380,6 @@ def _tap_chunk(dry_window: jax.Array, tau0, tau1, g0, g1, valid,
         g1 = g1[..., None]
     wd = dry_bands.shape[-1]
     k = dry_bands.shape[0]
-    if max_glide is not None:
-        full = tau0.shape[:3] + (k,)
-        return _tap_chunk_lanes(dry_bands,
-                                jnp.broadcast_to(tau0, full),
-                                jnp.broadcast_to(tau1, full),
-                                jnp.broadcast_to(g0, full),
-                                jnp.broadcast_to(g1, full),
-                                valid, n, max_glide)
     s = jnp.arange(n, dtype=jnp.float32)
     r = s / jnp.float32(max(1, n))
     tau = tau0[..., None] + (tau1 - tau0)[..., None] * r  # [L, A, 3, K, n]
@@ -528,10 +444,7 @@ def _per_arrival_parts(dry_piece: jax.Array, dry_window: jax.Array,
                       cat(idx_c.astype(jnp.float32), tau_p),
                       cat(g0, g3_p),
                       cat(g3_c, jnp.zeros_like(g3_p)),
-                      cat(val_c, vanished), n,
-                      # matched glides move <= match_bins; fade-in/out
-                      # taps don't glide at all
-                      max_glide=_tap_glide(float(match_bins)))
+                      cat(val_c, vanished), n)
     return (_crossfaded_wet(dry_piece, prev_res, cur_res), taps,
             new_carry)
 
@@ -660,21 +573,13 @@ def _per_arrival_binaural(dry_piece: jax.Array, dry_window: jax.Array,
             axis=1))
     rows_valid = jnp.concatenate([val_c, val_c, vanished, vanished],
                                  axis=1)                 # [1, 4A]
-    # ear glide bound: the W-channel match radius plus the worst
-    # chunk-to-chunk ITD swing. speed_of_sound is traced, so the slack
-    # uses a static floor of 100 m/s — far below any acoustic medium;
-    # a run below that merely mutes tap samples whose glide exceeds
-    # the bound (masked, never misread — see _tap_chunk_lanes)
-    itd_slack = 2.0 * head_radius * sample_rate / 100.0
     taps = _tap_chunk(_band_windows(cv.gate_input(dry_window), k),
                       jnp.concatenate(ear_tau0, axis=0),
                       jnp.concatenate(ear_tau1, axis=0),
                       jnp.concatenate(ear_g0, axis=0),
                       jnp.concatenate(ear_g1, axis=0),
                       jnp.concatenate([rows_valid, rows_valid], axis=0),
-                      n,
-                      max_glide=_tap_glide(float(match_bins) + itd_slack)
-                      )                                  # [2, n]
+                      n)                                 # [2, n]
     return (_crossfaded_wet(dry_piece, res_p, res_c), taps,
             new_carry)
 
@@ -797,8 +702,7 @@ def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
     binaural = binaural_facing is not None
 
     # 1. retrace: fresh IR for this chunk (accumulate-then-reset cycle,
-    #    RayTraceManager.cs:82-85); routed through the fused TPU kernel
-    #    when the config allows (engine.trace_accumulate "auto").
+    #    RayTraceManager.cs:82-85) through engine.trace_accumulate.
     from . import spatial as spm
     from .engine import trace_accumulate
     tp = spm.binaural_trace_params(params, l) if binaural else params

@@ -3,13 +3,14 @@
 The reference has no profiling subsystem (SURVEY.md section 5 — implicit
 Unity Profiler only). Here: wall-clock counters around compiled steps,
 derived domain metrics (ray-bounce intersections/s, IR build ms, streaming
-xRT), and optional ``jax.profiler`` trace capture for TPU timelines.
+xRT), and optional ``jax.profiler`` trace capture for device timelines.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -87,3 +88,16 @@ def device_trace(log_dir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them —
+    printed beside every device timing, since a card set below its
+    maximum power limit runs slower under load."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable: {e}"
+    return out.stdout.strip() or f"nvidia-smi: {out.stderr.strip()}"

@@ -1,12 +1,10 @@
 """Host-loop steady-state cost of `Streamer.stream_clip` per 0.1 s
 chunk — the end-to-end number (retrace + convolution + all host-side
 per-chunk bookkeeping), as opposed to bench.py's `Streamer.process`
-compiled-step cost. This is the measurement behind docs/PERF.md's
-round-4/5 per-arrival rows (round 4: plain 6.0 ms / per-arrival 8.5 ms
-with the host-built dry-history window; round 5 re-measures after the
-window moved on device).
+compiled-step cost, for the plain, per-arrival, binaural and composed
+stream modes.
 
-Run on the chip (never concurrently with another TPU process):
+Run on the accelerator (one process per card):
 
     python scripts/_prof_stream_host.py [--chunks 50]
 """
@@ -19,16 +17,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax  # noqa: E402
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_compile_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import realisticaudioraytracing2d_tpu as art  # noqa: E402
+from realisticaudioraytracing2d_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
 
 
 def run_mode(name, *, chunks, binaural=False, doppler=False):
@@ -87,9 +81,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--chunks", type=int, default=50)
     ap.add_argument("--mode", choices=[*MODES, "all"], default="all",
-                    help="run one mode per process so a relay stall "
-                         "can't lose completed measurements")
+                    help="time one mode only")
     args = ap.parse_args()
+    enable_compile_cache()
     print(f"backend: {jax.default_backend()}", flush=True)
     for m, kw in MODES.items():
         if args.mode in (m, "all"):

@@ -94,20 +94,6 @@ def test_cardioid_front_matches_omni_level():
     assert card_e == pytest.approx(2 * omni_e, rel=0.05)
 
 
-def test_accel_backend_runs_directive_params():
-    # Round 3: every kernel family runs directive params in-kernel —
-    # the accel (large-scene) paths included (parity in
-    # tests/test_directive_fused.py; this pins the engine routing).
-    room = smoll_room()
-    p = TraceParams.make(room.source, room.listener,
-                         directivity=dv.cardioid(0.0),
-                         mic_directivity=dv.cardioid(np.pi))
-    st = trace_accumulate(room.scene, p, IRState.zeros(4096),
-                          jax.random.PRNGKey(0), n_rays=256, max_bounces=4,
-                          sample_rate=8000, backend="accel")
-    assert float(np.asarray(st.sum).sum()) > 0
-
-
 def test_engine_params_passthrough_and_room_trace():
     room = smoll_room()
     cfg = smoll_room_config(ray_count=2000)

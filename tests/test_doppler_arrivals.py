@@ -640,60 +640,88 @@ def test_live_per_arrival_matches_stream():
     assert not np.allclose(rep.audio, plain.audio)
 
 
-def test_tap_chunk_lanes_matches_gather_formulation():
-    """The lane-decomposed tap synthesis (_tap_chunk(max_glide=...), the
-    TPU fast path that replaces the per-sample gather with statically
-    shifted strip slices) reproduces the gather formulation exactly:
-    bit-identical per-tap reads, f32-eps noise at most from XLA
-    reassociating the final tap sum. Covers both caller shapes — the
-    scalar 2-D promotion over banded dry and the binaural full
-    [2, A', 3, K] form with per-bin ITD-style offsets — plus taps
-    pinned at the window edges."""
+def _tap_chunk_numpy(dry, tau0, tau1, g0, g1, valid, n):
+    """Float64 loop form of ``_tap_chunk`` on its full ``[L, A, 3, K]``
+    inputs: every output sample of every valid bin reads band ``k`` of
+    the window at ``Wd - n + s - tau(s)`` by two-point interpolation."""
+    wd = dry.shape[-1]
+    l, a, _, k = tau0.shape
+    out = np.zeros((l, n))
+    r = np.arange(n) / n
+    for li, ai, d, kk in np.ndindex(l, a, 3, k):
+        if not valid[li, ai]:
+            continue
+        tau = tau0[li, ai, d, kk] + (tau1 - tau0)[li, ai, d, kk] * r
+        g = g0[li, ai, d, kk] + (g1 - g0)[li, ai, d, kk] * r
+        p = (wd - n) + np.arange(n) - tau
+        lo = np.floor(p)
+        frac = p - lo
+        lo_i = np.clip(lo.astype(int), 0, wd - 1)
+        hi_i = np.clip(lo_i + 1, 0, wd - 1)
+        y = dry[kk, lo_i] * (1 - frac) + dry[kk, hi_i] * frac
+        out[li] += g * np.where((p >= 0) & (p <= wd - 1), y, 0.0)
+    return out
+
+
+def _tap_fixture(case):
     rng = np.random.default_rng(3)
     n, early = 480, 600
     wd = n + early + 2
+    if case == "scalar_banded":
+        # scalar [L, A] delays promoted over K=4 banded dry
+        k = 4
+        dry = rng.normal(size=(k, wd))
+        tau0 = rng.uniform(1, early, (2, 12))
+        tau1 = tau0 + rng.uniform(-64, 64, (2, 12))
+        g0 = np.abs(rng.normal(size=(2, 12, 3)))
+        g1 = np.abs(rng.normal(size=(2, 12, 3)))
+        val = rng.uniform(size=(2, 12)) > 0.3
+        off = np.arange(-1, 2)[None, None, :, None]
+        shape = (2, 12, 3, k)
+        full = (np.broadcast_to(tau0[:, :, None, None] + off, shape),
+                np.broadcast_to(tau1[:, :, None, None] + off, shape),
+                np.broadcast_to(g0[..., None], shape),
+                np.broadcast_to(g1[..., None], shape))
+    elif case == "binaural":
+        # binaural full form [2, A', 3, 1] with per-bin ITD offsets
+        dry = rng.normal(size=(1, wd))
+        tau0 = np.clip(rng.uniform(0, early, (2, 24, 3, 1))
+                       + rng.uniform(-13, 13, (2, 24, 3, 1)), 0, None)
+        tau1 = np.clip(tau0 + rng.uniform(-64, 64, (2, 24, 1, 1))
+                       + rng.uniform(-25, 25, (2, 24, 3, 1)), 0, wd - 3)
+        g0 = np.abs(rng.normal(size=(2, 24, 3, 1)))
+        g1 = np.abs(rng.normal(size=(2, 24, 3, 1)))
+        val = rng.uniform(size=(2, 24)) > 0.2
+        full = (tau0, tau1, g0, g1)
+    else:
+        # window-edge pins (tau 0 / early / wd-1 / 0.5), zero glide
+        dry = rng.normal(size=(1, wd))
+        tau0 = np.zeros((1, 4, 3, 1))
+        tau0[0, 1], tau0[0, 2], tau0[0, 3] = early, wd - 1.0, 0.5
+        tau1 = tau0
+        g0 = g1 = np.ones((1, 4, 3, 1))
+        val = np.ones((1, 4), bool)
+        full = (tau0, tau1, g0, g1)
+    f32 = lambda x: jnp.asarray(np.asarray(x, np.float32))  # noqa: E731
+    args = (f32(dry), f32(tau0), f32(tau1), f32(g0), f32(g1),
+            jnp.asarray(val))
+    ref_in = [np.asarray(x, np.float32).astype(np.float64) for x in full]
+    want = _tap_chunk_numpy(np.asarray(dry, np.float32).astype(np.float64),
+                            *ref_in, val, n)
+    return args, n, want
 
-    def both(dry, tau0, tau1, g0, g1, val, mg):
-        a = jax.jit(lambda *x: st._tap_chunk(*x, n))(
-            dry, tau0, tau1, g0, g1, val)
-        b = jax.jit(lambda *x: st._tap_chunk(*x, n, max_glide=mg))(
-            dry, tau0, tau1, g0, g1, val)
-        return np.asarray(a), np.asarray(b)
 
-    # scalar promotion over K=4 banded dry, glides up to the bound
-    k = 4
-    dry = jnp.asarray(rng.normal(size=(k, wd)).astype(np.float32))
-    tau0 = jnp.asarray(rng.uniform(1, early, (2, 12)).astype(np.float32))
-    tau1 = tau0 + jnp.asarray(
-        rng.uniform(-64, 64, (2, 12)).astype(np.float32))
-    g0 = jnp.asarray(np.abs(rng.normal(size=(2, 12, 3))).astype(np.float32))
-    g1 = jnp.asarray(np.abs(rng.normal(size=(2, 12, 3))).astype(np.float32))
-    val = jnp.asarray(rng.uniform(size=(2, 12)) > 0.3)
-    a, b = both(dry, tau0, tau1, g0, g1, val, 64.0)
-    assert np.max(np.abs(a)) > 0.1            # non-trivial fixture
-    np.testing.assert_allclose(a, b, atol=2e-5)
-
-    # binaural full form [2, A', 3, 1] with per-bin ITD offsets
-    dry1 = jnp.asarray(rng.normal(size=(1, wd)).astype(np.float32))
-    t0 = np.clip(rng.uniform(0, early, (2, 24, 3, 1))
-                 + rng.uniform(-13, 13, (2, 24, 3, 1)), 0, None)
-    t1 = np.clip(t0 + rng.uniform(-64, 64, (2, 24, 1, 1))
-                 + rng.uniform(-25, 25, (2, 24, 3, 1)), 0, wd - 3)
-    gb0 = np.abs(rng.normal(size=(2, 24, 3, 1))).astype(np.float32)
-    gb1 = np.abs(rng.normal(size=(2, 24, 3, 1))).astype(np.float32)
-    vb = rng.uniform(size=(2, 24)) > 0.2
-    a, b = both(dry1, jnp.asarray(t0.astype(np.float32)),
-                jnp.asarray(t1.astype(np.float32)), jnp.asarray(gb0),
-                jnp.asarray(gb1), jnp.asarray(vb), 64.0 + 26 + 25)
-    assert np.array_equal(a, b)               # K=1: bit-identical
-
-    # window-edge pins (tau 0 / early / wd-1), zero glide
-    t0e = np.zeros((1, 4, 3, 1), np.float32)
-    t0e[0, 1], t0e[0, 2], t0e[0, 3] = early, wd - 1.0, 0.5
-    one = jnp.asarray(np.ones((1, 4, 3, 1), np.float32))
-    a, b = both(dry1, jnp.asarray(t0e), jnp.asarray(t0e), one, one,
-                jnp.asarray(np.ones((1, 4), bool)), 8.0)
-    assert np.array_equal(a, b)
+@pytest.mark.parametrize("case", ["scalar_banded", "binaural", "edges"])
+def test_tap_chunk_matches_numpy_reference(case):
+    """The gather tap synthesis equals a float64 loop over bins and
+    samples, for both caller shapes (the scalar 2-D promotion over
+    banded dry and the binaural full [2, A', 3, K] form with per-bin
+    ITD-style offsets) and for taps pinned at the window edges."""
+    args, n, want = _tap_fixture(case)
+    got = np.asarray(jax.jit(lambda *x: st._tap_chunk(*x, n))(*args))
+    assert np.max(np.abs(want)) > 0.1            # non-trivial fixture
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.max(np.abs(want)))
 
 
 def test_binaural_edge_arrival_stays_residual_not_muted():

@@ -192,91 +192,6 @@ def test_sample_scene_end_to_end():
     assert tail < head
 
 
-def test_auto_backend_big_scene_routing(monkeypatch):
-    # >5k walls exceed the fused kernel's VMEM tile budget (auto_tile
-    # raises): backend="auto" must route K=1 scenes to the accel path and
-    # banded scenes to jnp — never raise (round-1 VERDICT weak #2). Mock
-    # the backend so CPU CI exercises the TPU-only eligibility branches.
-    from realisticaudioraytracing2d_tpu import engine as eng_mod
-    from realisticaudioraytracing2d_tpu.models.materials import (
-        MATERIAL_BORDER)
-    from realisticaudioraytracing2d_tpu.models.scene import SceneBuilder
-    from realisticaudioraytracing2d_tpu.ops.pallas import (
-        bounce_kernel as bk)
-    from realisticaudioraytracing2d_tpu.ops.trace import TraceParams
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    b = SceneBuilder()
-    b.add_box(MATERIAL_BORDER, size=(10.0, 10.0))
-    small = b.build(pad_to=24)
-    big = b.build(pad_to=6016)
-    p = TraceParams.make(np.array([0.0, 0.0]), np.array([1.0, 0.0]),
-                         0.5, 343.0, 1.0)
-    assert eng_mod._fused_eligible(small, p, 512)   # mock sanity
-    assert not eng_mod._fused_eligible(big, p, 512)
-    assert eng_mod._accel_eligible(big, p, 512)
-
-    # auto on the big K=1 scene dispatches the accel kernel
-    calls = []
-
-    def fake_accel(scene, params, key, **kw):
-        calls.append(kw)
-        return jnp.zeros((1, kw["ir_length"], 1), jnp.float32)
-
-    monkeypatch.setattr(bk, "trace_frames_ir_accel_sorted", fake_accel)
-    state = irm.IRState.zeros(512, 1, 1)
-    out = trace_accumulate(big, p, state, jax.random.PRNGKey(0),
-                           n_rays=128, max_bounces=2, sample_rate=8000,
-                           n_frames=1, backend="auto")
-    assert calls and calls[0]["ir_length"] == 512
-    assert int(out.frames) == 1
-
-    # banded big scene: routes to the one-launch accel kernel (round 2;
-    # no re-sort variant for K>1)
-    b4 = SceneBuilder(n_bands=4)
-    b4.add_box(MATERIAL_BORDER, size=(10.0, 10.0))
-    big4 = b4.build(pad_to=6016)
-    assert eng_mod._accel_eligible(big4, p, 512)
-    banded_calls = []
-
-    def fake_accel_banded(scene, params, key, **kw):
-        banded_calls.append(kw)
-        return jnp.zeros((1, kw["ir_length"], scene.n_bands), jnp.float32)
-
-    monkeypatch.setattr(bk, "trace_frames_ir_accel", fake_accel_banded)
-    out = trace_accumulate(big4, p, irm.IRState.zeros(512, 1, 4),
-                           jax.random.PRNGKey(0), n_rays=128,
-                           max_bounces=2, sample_rate=8000, n_frames=1,
-                           backend="auto")
-    assert banded_calls and banded_calls[0]["ir_length"] == 512
-    assert int(out.frames) == 1
-
-    # a 32-band big scene is accel-eligible at ANY IR length now (over-
-    # VMEM histograms run as time windows inside trace_frames_ir_accel);
-    # the fake sees the full 72k request in one call
-    b32 = SceneBuilder(n_bands=32)
-    b32.add_box(MATERIAL_BORDER, size=(10.0, 10.0))
-    big32 = b32.build(pad_to=6016)
-    assert eng_mod._accel_eligible(big32, p, 512)
-    assert eng_mod._accel_eligible(big32, p, 72000)     # windowed inside
-    banded_calls.clear()
-    out = trace_accumulate(big32, p, irm.IRState.zeros(72000, 1, 32),
-                           jax.random.PRNGKey(0), n_rays=128,
-                           max_bounces=2, sample_rate=8000, n_frames=1,
-                           backend="auto")
-    assert banded_calls and banded_calls[0]["ir_length"] == 72000
-    assert int(out.frames) == 1
-    # only absurd band counts (no 8-row window block fits) stay jnp
-    from realisticaudioraytracing2d_tpu.ops.pallas.bounce_kernel import (
-        time_window)
-    assert time_window(512) == 0
-    b512 = SceneBuilder(n_bands=512)
-    b512.add_box(MATERIAL_BORDER, size=(10.0, 10.0))
-    big512 = b512.build(pad_to=6016)
-    assert not eng_mod._accel_eligible(big512, p, 512)
-
-
 def test_incremental_accumulation_reduces_variance():
     # Monte-Carlo core claim: frame-averaged IRs converge — the variance
     # of the normalized IR across independent 8-frame estimates is well
@@ -305,3 +220,58 @@ def test_incremental_accumulation_reduces_variance():
     # means agree (unbiasedness)
     assert abs(one.sum(axis=1).mean() - eight.sum(axis=1).mean()) \
         < 4 * np.sqrt(v1 / 6)
+
+
+def _removed_option_calls():
+    from realisticaudioraytracing2d_tpu.models.rooms import random_rooms
+    from realisticaudioraytracing2d_tpu.ops.trace import trace
+    from realisticaudioraytracing2d_tpu.parallel.frames import (
+        accumulate_frames_sharded)
+    from realisticaudioraytracing2d_tpu.parallel.mesh import make_mesh
+    from realisticaudioraytracing2d_tpu.parallel.multisource import (
+        trace_sources_mixdown, trace_sources_mixdown_sharded)
+    from realisticaudioraytracing2d_tpu.parallel.rays import (
+        trace_rays_sharded)
+    from realisticaudioraytracing2d_tpu.parallel.sweep import (
+        sweep_rooms, sweep_rooms_sharded)
+
+    room = art.rooms.smoll_room()
+    p = art.TraceParams.make(room.source, room.listener, 0.5, 343.0, 1.0)
+    key = jax.random.PRNGKey(0)
+    kw = dict(n_rays=64, max_bounces=2, sample_rate=8000)
+    ir_kw = dict(kw, ir_length=512)
+    rooms = random_rooms(2, seed=0, n_obstacles=1)
+    mesh = make_mesh((2,), ("rooms",), devices=jax.devices()[:2])
+    rays_mesh = make_mesh((2,), ("rays",), devices=jax.devices()[:2])
+    return {
+        "trace_accumulate": lambda: trace_accumulate(
+            room.scene, p, irm.IRState.zeros(512), key, backend="fused",
+            **kw),
+        "trace_use_pallas": lambda: trace(room.scene, p, key, n_rays=64,
+                                          max_bounces=2, use_pallas=True),
+        "sweep_rooms": lambda: sweep_rooms(*rooms, key, backend="fused",
+                                           **ir_kw),
+        "sweep_rooms_sharded": lambda: sweep_rooms_sharded(
+            *rooms, key, mesh, backend="fused", **ir_kw),
+        "mixdown": lambda: trace_sources_mixdown(
+            room.scene, p, key, backend="fused", **ir_kw),
+        "mixdown_sharded": lambda: trace_sources_mixdown_sharded(
+            room.scene, p._replace(source=np.tile(room.source, (2, 1))),
+            key, rays_mesh, backend="fused", **ir_kw),
+        "rays_sharded": lambda: trace_rays_sharded(
+            room.scene, p, key, rays_mesh, backend="fused", **ir_kw),
+        "frames_sharded": lambda: accumulate_frames_sharded(
+            room.scene, p, irm.IRState.zeros(512), key, mesh, n_frames=2,
+            backend="fused", **kw),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "trace_accumulate", "trace_use_pallas", "sweep_rooms",
+    "sweep_rooms_sharded", "mixdown", "mixdown_sharded", "rays_sharded",
+    "frames_sharded"])
+def test_removed_kernel_option_raises(entry):
+    # one trace path: asking for the retired kernel routes is an error,
+    # never a silent fallback
+    with pytest.raises(TypeError):
+        _removed_option_calls()[entry]()

@@ -24,7 +24,7 @@ pytestmark = pytest.mark.slow
 CASES = {
     "demo.py": ([], ["traced 8 frames", "localized",
                      "rt60", "bake"]),
-    "dataset_sweep.py": (["--rooms", "4", "--rays", "256"],
+    "dataset_sweep.py": (["--rooms", "4", "--rays", "256", "--cpu"],
                          ["rooms"]),
     "quad_mic.py": (["--grid", "2"], ["first arrival"]),
     "speaker_array.py": (["--elements", "4"], ["contrast"]),
@@ -47,8 +47,6 @@ CASES = {
     "binaural_walkby.py": (["--rays", "1024", "--chunks", "8"],
                            ["direct shifts up, echo shifts down",
                             "lateralized right"]),
-    # sweep_mxu_microbench.py is TPU-only (pallas tpu memory spaces):
-    # excluded here; tests_tpu/ and docs/PERF.md cover its claim.
 }
 
 
@@ -67,7 +65,7 @@ def run_example(name, args, tmp_path):
 def test_all_examples_are_covered():
     have = {f for f in os.listdir(os.path.join(REPO, "examples"))
             if f.endswith(".py")}
-    assert have - set(CASES) == {"sweep_mxu_microbench.py"}, \
+    assert have == set(CASES), \
         "new example script: add a smoke case for it"
 
 

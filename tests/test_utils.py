@@ -106,6 +106,13 @@ def test_profiling_helpers():
     assert ray_bounce_intersections(100, 5, 20, nee=False) == 100 * 5 * 20
 
 
+def test_card_line_without_nvidia_smi(tmp_path, monkeypatch):
+    # off the card there is no nvidia-smi: the line says so, never raises
+    from realisticaudioraytracing2d_tpu.utils.profiling import card_line
+    monkeypatch.setenv("PATH", str(tmp_path))
+    assert card_line().startswith("nvidia-smi unavailable")
+
+
 def test_checkpoint_extension_normalization(tmp_path):
     # regression: saving without .npz must still be loadable by the same
     # path (np.savez appends the suffix)
